@@ -14,17 +14,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.animate import ANIMATOR_KEYS, ANIMATORS
-from terminal_raytracer_tpu.ops.dynamic import pack_scene
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
-from terminal_raytracer_tpu.utils import imageio
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.animate import ANIMATOR_KEYS, ANIMATORS
+from terminal_raytracer.ops.dynamic import pack_scene
+from terminal_raytracer.runtime import init_state, make_render_step
+from terminal_raytracer.utils import imageio
 
 out_dir = sys.argv[1] if len(sys.argv) > 1 else "anim_frames"
 n_frames = int(sys.argv[2]) if len(sys.argv) > 2 else 8
 
 scene = load_scene("demo")
-if not jax.default_backend().startswith("tpu"):
+if jax.default_backend() != "gpu":
     scene = scene.with_overrides(width=100, height=50, samples_per_pixel=4,
                                  max_depth=4)
 

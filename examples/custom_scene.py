@@ -17,9 +17,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, mesh, scene as sm
-from terminal_raytracer_tpu.ops.tonemap import GLYPH_RAMP
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, mesh, scene as sm
+from terminal_raytracer.ops.tonemap import GLYPH_RAMP
+from terminal_raytracer.runtime import init_state, make_render_step
 
 
 def mat(color, emission=(0.0, 0.0, 0.0), reflectivity=0.0):
@@ -50,9 +50,7 @@ scene = sm.Scene(
     ),
 )
 
-step = make_render_step(scene, full_color=False,
-                        backend="auto" if
-                        jax.default_backend().startswith("tpu") else "jnp")
+step = make_render_step(scene, full_color=False)
 state, cam = init_state(scene), Camera()
 for f in range(8):
     out = step(state, cam.pose(), np.uint32(11 + f), np.int32(f))

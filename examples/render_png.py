@@ -12,21 +12,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
-from terminal_raytracer_tpu.utils import imageio
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.runtime import init_state, make_render_step
+from terminal_raytracer.utils import imageio
 
 out_path = sys.argv[1] if len(sys.argv) > 1 else "out.png"
 scene_name = sys.argv[2] if len(sys.argv) > 2 else "scene2"
 n_frames = int(sys.argv[3]) if len(sys.argv) > 3 else 16
 
 scene = load_scene(scene_name)
-if not jax.default_backend().startswith("tpu"):
-    # CPU fallback: shrink the workload so the example stays snappy.
+if jax.default_backend() != "gpu":
+    # Off the GPU: shrink the workload so the example stays snappy.
     scene = scene.with_overrides(width=120, height=60, samples_per_pixel=8,
                                  max_depth=4)
 
-step = make_render_step(scene, full_color=True)  # pallas on TPU, jnp off
+step = make_render_step(scene, full_color=True)  # kernel on a GPU, else jnp
 state, cam = init_state(scene), Camera()
 for f in range(n_frames):
     out = step(state, cam.pose(), np.uint32(1 + f), np.int32(f))

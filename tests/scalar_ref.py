@@ -6,7 +6,7 @@ control flow (per-path breaks, data-dependent RNG draws), exactly as a
 scalar GPU thread would execute. It is used by the test-suite to validate
 the vectorized wavefront tracer statistically: both must converge to the
 same per-pixel mean radiance (they draw different RNG sequences, so
-agreement is within Monte-Carlo error — BASELINE's "parity modulo RNG").
+agreement is within Monte-Carlo error — "parity modulo RNG", PARITY.md).
 
 Slow by construction; tests use it on a handful of pixels / tiny images.
 """
@@ -144,7 +144,7 @@ class Prim:
 
 
 def prims_from_scene(scene):
-    from terminal_raytracer_tpu.models import scene as sm
+    from terminal_raytracer.models import scene as sm
 
     out = []
     for tag, p in scene.primitives:

@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.gen import stress_scene
-from terminal_raytracer_tpu.ops import accel as accel_mod
-from terminal_raytracer_tpu.ops import geometry as geom
-from terminal_raytracer_tpu.ops.vecmath import V3
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.gen import stress_scene
+from terminal_raytracer.ops import accel as accel_mod
+from terminal_raytracer.ops import geometry as geom
+from terminal_raytracer.ops.vecmath import V3
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 
@@ -59,15 +59,15 @@ def test_dense_blocked_matches_original_order():
 
 
 def test_culled_pallas_matches_oracle():
-    """The pl.when-gated culled traversal (interpret mode) matches the
-    dense jnp oracle on the same blocked order: culling is output-invariant
-    per lane, so ray counts and adaptive budgets are EXACTLY equal; the
-    radiance tolerance covers fma-contraction differences between the two
-    program structures amplified through the bounce recursion (the same
-    equivalence class as bench.py's on-TPU gate, maxrel < 5e-3)."""
+    """The blocked traversal inside the kernel (interpret mode) matches
+    the jnp oracle on the same blocked order: ray counts and adaptive
+    budgets are EXACTLY equal; the radiance tolerance covers
+    fma-contraction differences between the two program structures
+    amplified through the bounce recursion."""
     scene = small_stress(48)
     step_j = make_render_step(scene, backend="jnp", accel="grid")
-    step_p = make_render_step(scene, backend="pallas", accel="grid")
+    step_p = make_render_step(scene, backend="pallas", accel="grid",
+                              interpret=True)
     a = step_j(init_state(scene), POSE, np.uint32(9), np.int32(0))
     b = step_p(init_state(scene), POSE, np.uint32(9), np.int32(0))
     assert float(a.rays) == float(b.rays)
@@ -81,12 +81,12 @@ def test_culled_pallas_matches_oracle():
 
 
 def test_accel_selection():
-    from terminal_raytracer_tpu.ops.arrayscene import ArrayPrims
-    from terminal_raytracer_tpu.ops.tracer import PathTracer
+    from terminal_raytracer.ops.arrayscene import ArrayPrims
+    from terminal_raytracer.ops.tracer import PathTracer
 
     # auto == baked at shipped scale, the array-resident sweep above the
-    # primitive-count threshold (see PathTracer.__init__); culling never
-    # wins (measured, tools/perf_probe3.py) so 'grid' stays opt-in.
+    # primitive-count threshold (see PathTracer.__init__); 'grid' stays
+    # opt-in (ops/accel.py status).
     small = load_scene("Cornell_Box")
     assert isinstance(PathTracer(small).prims, geom.ScenePrims)
     big = small_stress(96)  # 96 spheres + 1 plane > ARRAY_AUTO_THRESHOLD

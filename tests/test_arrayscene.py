@@ -4,10 +4,10 @@ sweep, Pallas-vs-oracle agreement, and the accel='auto' threshold."""
 import jax
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.gen import stress_scene
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import ARRAY_AUTO_THRESHOLD, PathTracer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.gen import stress_scene
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import ARRAY_AUTO_THRESHOLD, PathTracer
 
 POSE = Camera().pose()
 
@@ -54,24 +54,23 @@ def test_array_mis_transport_matches_baked():
 
 
 def test_array_pallas_matches_oracle():
-    """Both Pallas schedulers consume the SoA arrays through SMEM refs
-    (fori_loop dynamic reads) and agree with the array oracle: ray counts
+    """The GPU kernel consumes the SoA arrays through input refs
+    (fori_loop dynamic reads) and agrees with the array oracle: ray counts
     exact, radiance to interpret-mode float rounding."""
     scene = stress_scene(48, seed=3, width=128, height=16,
                          samples_per_pixel=8, max_depth=2)
     co, _vo, to, ro = jax.device_get(jax.jit(
         PathTracer(scene, accel="array").render_frame
     )(POSE, np.uint32(7), np.int32(0)))
-    for mode in ("regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(
-            scene, mode=mode, accel="array"
-        ))
-        cp, _vp, tp, rp, _occ = jax.device_get(
-            pf(POSE, np.uint32(7), np.int32(0)))
-        assert float(rp) == float(ro), mode
-        np.testing.assert_array_equal(np.asarray(tp), np.asarray(to), mode)
-        np.testing.assert_allclose(np.asarray(cp.x), np.asarray(co.x),
-                                   atol=2e-5, err_msg=mode)
+    pf = jax.jit(pallas_kernel.make_render_frame(
+        scene, interpret=True, accel="array"
+    ))
+    cp, _vp, tp, rp, _occ = jax.device_get(
+        pf(POSE, np.uint32(7), np.int32(0)))
+    assert float(rp) == float(ro)
+    np.testing.assert_array_equal(np.asarray(tp), np.asarray(to))
+    np.testing.assert_allclose(np.asarray(cp.x), np.asarray(co.x),
+                               atol=2e-5, err_msg="kernel")
 
 
 def test_auto_threshold():
@@ -90,9 +89,9 @@ def test_dynamic_array_matches_dynprims():
     through the fori sweep + traced light values must be BIT-identical to
     the fully-dynamic DynPrims render at equal (moved) values — on a
     sphere-light stress field and on Cornell (animated triangle lights)."""
-    from terminal_raytracer_tpu.models.animate import orbit
-    from terminal_raytracer_tpu.ops.arrayscene import ArrayDynPrims
-    from terminal_raytracer_tpu.ops.dynamic import pack_scene
+    from terminal_raytracer.models.animate import orbit
+    from terminal_raytracer.ops.arrayscene import ArrayDynPrims
+    from terminal_raytracer.ops.dynamic import pack_scene
 
     for name in ("stress:48", "Cornell_Box"):
         scene = _small(name)
@@ -112,10 +111,10 @@ def test_dynamic_array_matches_dynprims():
 
 
 def test_dynamic_array_pallas_matches_oracle():
-    """Both Pallas schedulers run the dynamic-array mode (SoA refs + light
-    scalars through SMEM) and agree with the ArrayDynPrims oracle."""
-    from terminal_raytracer_tpu.models.animate import orbit
-    from terminal_raytracer_tpu.ops.dynamic import pack_scene
+    """The GPU kernel runs the dynamic-array mode (SoA refs + light
+    scalars through inputs) and agrees with the ArrayDynPrims oracle."""
+    from terminal_raytracer.models.animate import orbit
+    from terminal_raytracer.ops.dynamic import pack_scene
 
     scene = stress_scene(48, seed=3, width=128, height=16,
                          samples_per_pixel=8, max_depth=2)
@@ -123,12 +122,11 @@ def test_dynamic_array_pallas_matches_oracle():
     ap = PathTracer(scene, dynamic=True, accel="array")
     co, _vo, to, ro = jax.device_get(jax.jit(ap.render_frame_dynamic)(
         POSE, np.uint32(3), np.int32(0), arrays))
-    for mode in ("regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(
-            scene, mode=mode, dynamic=True, accel="array"))
-        cp, _vp, tp, rp, _occ = jax.device_get(
-            pf(POSE, np.uint32(3), np.int32(0), arrays))
-        assert float(rp) == float(ro), mode
-        np.testing.assert_array_equal(np.asarray(tp), np.asarray(to), mode)
-        np.testing.assert_allclose(np.asarray(cp.x), np.asarray(co.x),
-                                   atol=2e-5, err_msg=mode)
+    pf = jax.jit(pallas_kernel.make_render_frame(
+        scene, interpret=True, dynamic=True, accel="array"))
+    cp, _vp, tp, rp, _occ = jax.device_get(
+        pf(POSE, np.uint32(3), np.int32(0), arrays))
+    assert float(rp) == float(ro)
+    np.testing.assert_array_equal(np.asarray(tp), np.asarray(to))
+    np.testing.assert_allclose(np.asarray(cp.x), np.asarray(co.x),
+                               atol=2e-5, err_msg="kernel")

@@ -1,8 +1,8 @@
 """bench.py harness sanity: config table well-formed, every config's scene
 loads, and the protocol frame-count resolution honors overrides.
 
-The timed paths themselves run only on the TPU (bench.py is the driver's
-headline artifact); what CAN break silently on CPU is the config table —
+The timed paths themselves run only on a GPU (bench.py refuses anything
+else); what CAN break silently on CPU is the config table —
 a renamed scene, a typo'd key, a frames count that isn't a positive
 multiple of the chain — so pin exactly that here.
 """
@@ -27,7 +27,7 @@ def bench():
 
 
 def test_every_config_scene_loads(bench):
-    from terminal_raytracer_tpu.models import load_scene
+    from terminal_raytracer.models import load_scene
 
     for name, cfg in bench.CONFIGS.items():
         scene = load_scene(cfg["scene"]).with_overrides(
@@ -60,9 +60,9 @@ def test_frames_override_wins(bench):
 def test_dynamic_configs_use_animatable_scenes(bench):
     """Dynamic configs go through pack_scene + the orbit animator; make
     sure the packing accepts every dynamic config's scene."""
-    from terminal_raytracer_tpu.models import load_scene
-    from terminal_raytracer_tpu.models.animate import orbit
-    from terminal_raytracer_tpu.ops.dynamic import pack_scene
+    from terminal_raytracer.models import load_scene
+    from terminal_raytracer.models.animate import orbit
+    from terminal_raytracer.ops.dynamic import pack_scene
 
     for name, cfg in bench.CONFIGS.items():
         if not cfg.get("dynamic"):

@@ -4,7 +4,7 @@ format conformance (SURVEY.md §4.4's "glyph/ANSI snapshot test")."""
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.runtime.blit import Blitter
+from terminal_raytracer.runtime.blit import Blitter
 
 
 def _frame(h=7, w=13, seed=0):

@@ -3,7 +3,7 @@ lib.rs:393-405."""
 
 import numpy as np
 
-from terminal_raytracer_tpu.models.camera import Camera, PITCH_CLAMP
+from terminal_raytracer.models.camera import Camera, PITCH_CLAMP
 
 
 def test_default_pose_looks_down_negative_z():

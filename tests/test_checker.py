@@ -1,8 +1,8 @@
 """Procedural checker textures — capability extension tests.
 
 `checker_color` + `checker_scale` recolor hits on a world-space 3-D
-checkerboard (ops/tracer.py bounce_step) — the TPU-sane texture: pure lane
-math, no per-lane gathers. Same contract as the other extension channels
+checkerboard (ops/tracer.py bounce_step) — pure lane math, no table
+reads. Same contract as the other extension channels
 (test_dielectric / test_roughness): statically gated — scenes without
 checkers compile to the exact pre-extension program — and agreeing across
 every traversal and scheduler.
@@ -16,11 +16,11 @@ import jax
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.ops import dynamic as dyn_mod
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import PathTracer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.ops import dynamic as dyn_mod
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import PathTracer
 
 POSE = Camera().pose()
 
@@ -123,7 +123,7 @@ def test_animator_folding_composes_with_extension_channels():
     # checker values come from _static, not the runtime operands). At the
     # animator's identity pose the render must equal the fully-baked
     # tracer bit-for-bit; at t > 0 the geometry must actually move.
-    from terminal_raytracer_tpu.models.animate import ANIMATOR_KEYS, orbit
+    from terminal_raytracer.models.animate import ANIMATOR_KEYS, orbit
 
     cfg = json.loads((_SCENES / "Cornell_Box.json").read_text())
     cfg["spheres"][1].update(transparency=0.95, ior=1.5, color=[1, 1, 1])
@@ -148,8 +148,8 @@ def test_animator_folding_composes_with_extension_channels():
 
 def test_pallas_schedulers_match_oracle_on_showcase_scene():
     # The packaged showcase scene exercises every extension channel at
-    # once (checker floor + glass + brushed metal) through all three
-    # Pallas schedulers. Checker cell boundaries are knife-edges: a 1-ulp
+    # once (checker floor + glass + brushed metal) through the GPU
+    # kernel. Checker cell boundaries are knife-edges: a 1-ulp
     # cross-program difference in the hit position can flip an isolated
     # boundary pixel's cell parity (ops/tracer.py comment) — so radiance
     # is compared outlier-tolerantly (boundary flips are O(1) color
@@ -162,18 +162,17 @@ def test_pallas_schedulers_match_oracle_on_showcase_scene():
     assert (scene.has_checker and scene.has_dielectrics
             and scene.has_rough_metals)
     cur_o, _vo, tot_o, rays_o = _render(PathTracer(scene))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(
-            POSE, np.uint32(42), np.int32(0)
-        )
-        err = f"mode={mode}"
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            diff = np.abs(np.asarray(a) - np.asarray(b))
-            outliers = int((diff > 2e-5).sum())
-            assert outliers <= diff.size // 100, (err, outliers)
-            assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(
+        POSE, np.uint32(42), np.int32(0)
+    )
+    err = "kernel"
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        diff = np.abs(np.asarray(a) - np.asarray(b))
+        outliers = int((diff > 2e-5).sum())
+        assert outliers <= diff.size // 100, (err, outliers)
+        assert np.median(diff) < 2e-6, (err, float(np.median(diff)))

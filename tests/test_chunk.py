@@ -4,23 +4,23 @@ At large array scales the base/extra phases split each pixel's sequential
 sample chain into decorrelated sub-chains so single heavy pixels spread
 across lanes (the occupancy tail no lane ASSIGNMENT can fix — NOTES.md
 "measured dead ends"). The SAME sub-chain derivation runs in the jnp oracle
-drivers and the Pallas kernels, so the pallas-vs-jnp estimator-equality
-gate holds on the chunked estimator; parity with the reference stays
-"modulo RNG" (BASELINE.md). Reference-scale scenes (baked traversal) keep
+drivers and the GPU kernel, so the pallas-vs-jnp estimator equality
+holds on the chunked estimator; parity with the reference stays
+"modulo RNG" (PARITY.md). Reference-scale scenes (baked traversal) keep
 the exact sequential chains (shader.wgsl:517 per-sample re-hash order).
 
 Tests force chunking explicitly on a SMALL stress scene (CPU-interpret
-budget); the 'auto' policy itself (v5e-measured CHUNK_AUTO_THRESHOLD) is
-pinned attribute-level.
+budget); the 'auto' policy itself (CHUNK_AUTO_THRESHOLD) is pinned
+attribute-level.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import (
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import (
     ARRAY_CHUNK_BASE,
     ARRAY_CHUNK_EXTRA,
     CHUNK_AUTO_THRESHOLD,
@@ -38,7 +38,7 @@ def _stress(n=120, **kw):
 
 
 def test_auto_policy():
-    """Chunking fires only at the v5e-measured winning scale with a whole
+    """Chunking fires only at CHUNK_AUTO_THRESHOLD scale with a whole
     budget: baked scenes, sub-threshold array scenes (including the small
     scenes the bit-parity tests force accel='array' on), and sample-split
     shares (base_quota) all stay on the exact sequential chains."""
@@ -65,7 +65,7 @@ def test_auto_policy():
 
 
 def test_chunked_schedulers_decision_exact():
-    """All three Pallas schedulers implement the chunked sub-chain
+    """The GPU kernel implements the chunked sub-chain
     derivation identically to the oracle: ray counts and adaptive budgets
     EXACT, radiance to interpret-mode float rounding."""
     scene = _stress()
@@ -73,19 +73,18 @@ def test_chunked_schedulers_decision_exact():
     assert tr.chunk_base == 2 and tr.chunk_extra == 2
     co, vo, to, ro = jax.device_get(
         jax.jit(tr.render_frame)(POSE, np.uint32(123), np.int32(2)))
-    for mode in ("sorted", "lockstep", "regen"):
-        cp, vp, tp, rp, occ = jax.device_get(jax.jit(
-            pallas_kernel.make_render_frame(scene, mode=mode, **CHUNKED)
-        )(POSE, np.uint32(123), np.int32(2)))
-        assert float(rp) == float(ro), mode
-        np.testing.assert_array_equal(np.asarray(to), np.asarray(tp),
-                                      err_msg=mode)
-        for q, (a, b) in (("x", (co.x, cp.x)), ("y", (co.y, cp.y)),
-                          ("z", (co.z, cp.z))):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=0, atol=5e-5,
-                                       err_msg=f"{mode}:{q}")
-        assert 0.0 < float(occ) <= 1.0, mode
+    cp, vp, tp, rp, occ = jax.device_get(jax.jit(
+        pallas_kernel.make_render_frame(scene, interpret=True, **CHUNKED)
+    )(POSE, np.uint32(123), np.int32(2)))
+    assert float(rp) == float(ro)
+    np.testing.assert_array_equal(np.asarray(to), np.asarray(tp),
+                                  err_msg="kernel")
+    for q, (a, b) in (("x", (co.x, cp.x)), ("y", (co.y, cp.y)),
+                      ("z", (co.z, cp.z))):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=0, atol=5e-5,
+                                   err_msg=q)
+    assert 0.0 < float(occ) <= 1.0
 
 
 def test_chunk0_base_is_sequential_chain_head():
@@ -129,7 +128,7 @@ def test_chunked_px_sharding_bit_identical():
     equals the single-chip chunked oracle bitwise. (Both sides resolve
     chunking from the same auto policy — pinned here at threshold scale
     via a cheap attribute check plus a forced-chunk value check.)"""
-    from terminal_raytracer_tpu.parallel.mesh import (
+    from terminal_raytracer.parallel.mesh import (
         make_mesh, make_sharded_render_step)
 
     # Attribute-level: the sharded step's px path resolves the same policy.

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.ops import denoise as dn
-from terminal_raytracer_tpu.ops.vecmath import V3
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.ops import denoise as dn
+from terminal_raytracer.ops.vecmath import V3
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 
@@ -121,7 +121,7 @@ def test_denoise_fades_with_convergence():
 def test_denoise_chunk_renderer_matches_per_frame():
     """The chunked headless path finalizes with the same filter at the
     same frame number — bit-identical to per-frame driving."""
-    from terminal_raytracer_tpu.runtime.offline import make_chunk_renderer
+    from terminal_raytracer.runtime.offline import make_chunk_renderer
 
     scene = _scene()
     seeds = np.arange(100, 104, dtype=np.uint32)
@@ -139,7 +139,7 @@ def test_denoise_chunk_renderer_matches_per_frame():
 def test_denoise_sharded_halo_matches_single_chip():
     """px sharding with per-pass ppermute halo exchange: bit-identical to
     the single-chip filter (rows=16 >= widest halo 8 -> the halo path)."""
-    from terminal_raytracer_tpu.parallel import (make_mesh,
+    from terminal_raytracer.parallel import (make_mesh,
                                                  make_sharded_render_step)
 
     scene = _scene(height=32, width=64)
@@ -155,7 +155,7 @@ def test_denoise_sharded_halo_matches_single_chip():
 def test_denoise_sharded_gather_fallback_matches_single_chip():
     """Tiny row blocks (rows=4 < halo 8): the all_gather fallback — same
     bit-identical contract."""
-    from terminal_raytracer_tpu.parallel import (make_mesh,
+    from terminal_raytracer.parallel import (make_mesh,
                                                  make_sharded_render_step)
 
     scene = _scene(height=32, width=64)
@@ -169,9 +169,18 @@ def test_denoise_sharded_gather_fallback_matches_single_chip():
 
 
 def test_denoise_cli_headless():
-    from terminal_raytracer_tpu.cli import main
+    """In-process CLI run; --no-compile-cache switches JAX's persistent
+    cache off (restored afterwards for the rest of this process)."""
+    import jax
 
-    rc = main(["--scene", "scene2", "--frames", "2", "--denoise", "1.0",
-               "--width", "48", "--height", "24", "--spp", "4",
-               "--depth", "3", "--backend", "jnp", "--no-compile-cache"])
-    assert rc == 0
+    from terminal_raytracer.cli import main
+
+    was = jax.config.jax_enable_compilation_cache
+    try:
+        rc = main(["--scene", "scene2", "--frames", "2", "--denoise", "1.0",
+                   "--width", "48", "--height", "24", "--spp", "4",
+                   "--depth", "3", "--backend", "jnp", "--no-compile-cache"])
+        assert rc == 0
+        assert jax.config.jax_enable_compilation_cache is False
+    finally:
+        jax.config.update("jax_enable_compilation_cache", was)

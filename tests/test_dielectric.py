@@ -9,8 +9,8 @@ under test:
   (no extra ops, RNG draws, or operand-layout changes) — the glass branch
   is statically gated;
 * scenes WITH dielectrics agree bit-for-bit across every traversal
-  (baked / array / dynamic / grid) and across the jnp oracle and all three
-  Pallas schedulers (decision outputs exact, radiance to float fusion);
+  (baked / array / dynamic / grid) and across the jnp oracle and the GPU
+  kernel (decision outputs exact, radiance to float fusion);
 * the refraction math obeys Snell's law, total internal reflection, and
   Schlick's normal-incidence reflectance.
 """
@@ -24,16 +24,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.ops import dynamic as dyn_mod
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops import rng as prng
-from terminal_raytracer_tpu.ops import vecmath as vm
-from terminal_raytracer_tpu.ops.tracer import (
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.ops import dynamic as dyn_mod
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops import rng as prng
+from terminal_raytracer.ops import vecmath as vm
+from terminal_raytracer.ops.tracer import (
     PathTracer, fresnel_schlick, refract,
 )
-from terminal_raytracer_tpu.ops.vecmath import V3
+from terminal_raytracer.ops.vecmath import V3
 
 POSE = Camera().pose()
 
@@ -269,19 +269,18 @@ def test_pallas_schedulers_match_oracle_on_glass_scene():
     scene = _glass_cornell(width=128, height=8, samples_per_pixel=4,
                            max_depth=4)
     cur_o, var_o, tot_o, rays_o = _render(PathTracer(scene))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, var_p, tot_p, rays_p, _occ = pf(
-            POSE, np.uint32(42), np.int32(0)
-        )
-        err = f"mode={mode}"
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=2e-5, err_msg=err)
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, var_p, tot_p, rays_p, _occ = pf(
+        POSE, np.uint32(42), np.int32(0)
+    )
+    err = "kernel"
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   atol=2e-5, err_msg=err)
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
 
 
 # ---------------------------------------------------------------------------
@@ -347,16 +346,16 @@ def test_mis_transport_runs_on_glass_scene():
 
 def test_pallas_grid_glass_matches_oracle():
     # The one traversal x backend combination nothing else executes: the
-    # pl.when-gated culled sweep inside the Pallas kernel with the glass
-    # scratch planes live (ops/accel.py s[13]/s[14], N_SCRATCH = 15).
-    # Culling is output-invariant, so rays/budgets are exactly equal to
-    # the dense jnp oracle on the same blocked order.
-    from terminal_raytracer_tpu.runtime import init_state, make_render_step
+    # blocked-order grid sweep inside the GPU kernel with the glass branch
+    # live. Both sides sweep the same blocked order densely, so
+    # rays/budgets are exactly equal to the jnp oracle.
+    from terminal_raytracer.runtime import init_state, make_render_step
 
     scene = _glass_cornell(width=64, height=16, samples_per_pixel=4,
                            max_depth=4)
     step_j = make_render_step(scene, backend="jnp", accel="grid")
-    step_p = make_render_step(scene, backend="pallas", accel="grid")
+    step_p = make_render_step(scene, backend="pallas", accel="grid",
+                              interpret=True)
     a = step_j(init_state(scene), POSE, np.uint32(9), np.int32(0))
     b = step_p(init_state(scene), POSE, np.uint32(9), np.int32(0))
     assert float(a.rays) == float(b.rays)
@@ -411,10 +410,10 @@ def test_sharded_step_matches_single_chip_on_glass():
     # The multi-chip ('px') sharded step over a glass scene: pixel-row DP
     # changes no estimator, so it must equal the single-chip render
     # bit-for-bit — including through the dielectric branch.
-    from terminal_raytracer_tpu.parallel import (
+    from terminal_raytracer.parallel import (
         make_mesh, make_sharded_render_step,
     )
-    from terminal_raytracer_tpu.runtime import init_state, make_render_step
+    from terminal_raytracer.runtime import init_state, make_render_step
 
     scene = _glass_cornell(width=64, height=32, samples_per_pixel=4,
                            max_depth=4)
@@ -440,7 +439,7 @@ def test_dynamic_array_sweep_with_glass():
     t_base = PathTracer(scene)
     cur, _var, _tot, rays = _render(t_base)
     t_dyn = PathTracer(scene, dynamic=True, accel="array")
-    from terminal_raytracer_tpu.ops.arrayscene import ArrayDynPrims
+    from terminal_raytracer.ops.arrayscene import ArrayDynPrims
 
     assert isinstance(t_dyn.prims, ArrayDynPrims)
     c2, _v2, _t2, r2 = jax.jit(
@@ -453,7 +452,7 @@ def test_dynamic_array_sweep_with_glass():
 
 def test_render_step_pipeline_with_glass():
     # Full runtime step (tonemap + uint8 framing) on the packaged scene.
-    from terminal_raytracer_tpu.runtime import init_state, make_render_step
+    from terminal_raytracer.runtime import init_state, make_render_step
 
     scene = load_scene("cornell_glass").with_overrides(
         width=48, height=12, samples_per_pixel=4, max_depth=4

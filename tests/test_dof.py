@@ -7,11 +7,11 @@ elsewhere, in every scheduler."""
 import jax
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.scene import scene_from_dict
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import PathTracer
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.scene import scene_from_dict
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import PathTracer
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 
@@ -94,14 +94,13 @@ def test_dof_pallas_matches_oracle():
     scene = _two_spheres(0.35, 4.0)
     of = jax.jit(PathTracer(scene).render_frame)
     cur_o, _v, tot_o, rays_o = of(POSE, np.uint32(9), np.int32(0))
-    for mode in ("regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(9), np.int32(0))
-        assert float(rays_p) == float(rays_o), mode
-        np.testing.assert_array_equal(
-            np.asarray(tot_p), np.asarray(tot_o), mode
-        )
-        np.testing.assert_allclose(
-            np.asarray(cur_p.x), np.asarray(cur_o.x), atol=2e-5,
-            err_msg=mode,
-        )
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(9), np.int32(0))
+    assert float(rays_p) == float(rays_o)
+    np.testing.assert_array_equal(
+        np.asarray(tot_p), np.asarray(tot_o)
+    )
+    np.testing.assert_allclose(
+        np.asarray(cur_p.x), np.asarray(cur_o.x), atol=2e-5,
+        err_msg="kernel",
+    )

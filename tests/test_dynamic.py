@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.animate import ANIMATORS
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.dynamic import pack_scene
-from terminal_raytracer_tpu.ops.tracer import PathTracer
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.animate import ANIMATORS
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.dynamic import pack_scene
+from terminal_raytracer.ops.tracer import PathTracer
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 
@@ -64,18 +64,16 @@ def test_dynamic_pallas_matches_oracle():
     co, _vo, to, ro = jax.jit(dyn.render_frame_dynamic)(
         POSE, np.uint32(3), np.int32(0), arrays
     )
-    # 'sorted' runs the real two-kernel pipeline under dynamic values (the
-    # SMEM operands thread through both kernels).
-    for mode in ("regen", "sorted"):
-        pf = jax.jit(
-            pallas_kernel.make_render_frame(scene, mode=mode, dynamic=True)
-        )
-        cp, _vp, tp, rp, _occ = pf(POSE, np.uint32(3), np.int32(0), arrays)
-        assert float(rp) == float(ro), mode
-        np.testing.assert_array_equal(np.asarray(tp), np.asarray(to), mode)
-        np.testing.assert_allclose(
-            np.asarray(cp.x), np.asarray(co.x), atol=2e-5, err_msg=mode
-        )
+    # The kernel under dynamic values (the value arrays ride as inputs).
+    pf = jax.jit(
+        pallas_kernel.make_render_frame(scene, interpret=True, dynamic=True)
+    )
+    cp, _vp, tp, rp, _occ = pf(POSE, np.uint32(3), np.int32(0), arrays)
+    assert float(rp) == float(ro)
+    np.testing.assert_array_equal(np.asarray(tp), np.asarray(to))
+    np.testing.assert_allclose(
+        np.asarray(cp.x), np.asarray(co.x), atol=2e-5, err_msg="kernel"
+    )
 
 
 def test_dynamic_mis_transport():
@@ -98,7 +96,7 @@ def test_animated_subset_folding_bit_identical_to_baked():
     baked constants — at template values the result must stay bit-identical
     to the fully-baked tracer, for the oracle AND the sorted Pallas
     pipeline."""
-    from terminal_raytracer_tpu.models.animate import ANIMATOR_KEYS
+    from terminal_raytracer.models.animate import ANIMATOR_KEYS
 
     scene = _scene("Cornell_Box")
     arrays = pack_scene(scene)
@@ -115,7 +113,7 @@ def test_animated_subset_folding_bit_identical_to_baked():
         np.testing.assert_array_equal(np.asarray(cb.x), np.asarray(cd.x),
                                       name)
     pf = jax.jit(pallas_kernel.make_render_frame(
-        scene, mode="sorted", dynamic=True,
+        scene, interpret=True, dynamic=True,
         animated=ANIMATOR_KEYS["orbit"],
     ))
     cp, _vp, tp, rp, _occ = pf(POSE, np.uint32(21), np.int32(0), arrays)
@@ -128,7 +126,7 @@ def test_animator_keys_declarations_accurate():
     """ANIMATOR_KEYS must cover exactly what each animator varies — the
     folding machinery bakes everything else, so an undeclared moving key
     would silently freeze."""
-    from terminal_raytracer_tpu.models.animate import ANIMATOR_KEYS
+    from terminal_raytracer.models.animate import ANIMATOR_KEYS
 
     scene = _scene("Cornell_Box")
     a0 = pack_scene(scene)
@@ -192,7 +190,7 @@ def test_animated_engine_step_sequence():
 def test_animation_scan_matches_per_frame():
     """The animation-scan program (geometry as scanned inputs) is
     bit-identical to driving the dynamic step frame by frame."""
-    from terminal_raytracer_tpu.runtime.offline import (
+    from terminal_raytracer.runtime.offline import (
         make_animation_scan_renderer,
     )
 
@@ -220,7 +218,7 @@ def test_animation_scan_matches_per_frame():
 def test_animation_scan_honors_transport():
     """--animate --scan --mis must not silently fall back to the reference
     transport (regression: transport was accepted but unforwarded)."""
-    from terminal_raytracer_tpu.runtime.offline import (
+    from terminal_raytracer.runtime.offline import (
         make_animation_scan_renderer,
     )
 

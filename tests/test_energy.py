@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera
-from terminal_raytracer_tpu.models.scene import scene_from_dict
-from terminal_raytracer_tpu.ops.tracer import PathTracer, cam_from_pose
+from terminal_raytracer.models import Camera
+from terminal_raytracer.models.scene import scene_from_dict
+from terminal_raytracer.ops.tracer import PathTracer, cam_from_pose
 
 CAM = cam_from_pose(Camera().pose())
 

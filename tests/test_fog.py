@@ -16,11 +16,11 @@ import jax
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.models.scene import Fog
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import PathTracer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.models.scene import Fog
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import PathTracer
 
 POSE = Camera().pose()
 
@@ -100,7 +100,7 @@ def test_mis_fog_same_paths_and_mean_matches_unbiased():
     'mis' reweights only (identical RNG chains/ray counts), and on a
     pure-diffuse fog scene its many-seed mean agrees with 'unbiased'
     (both unbiased estimators of the same transport integral)."""
-    from terminal_raytracer_tpu.runtime import init_state, make_render_step
+    from terminal_raytracer.runtime import init_state, make_render_step
 
     for g in (0.0, 0.6):
         scene = _tri_light_fog_scene(g=g)
@@ -157,7 +157,7 @@ def test_mis_fog_pallas_matches_oracle():
         PathTracer(scene, transport="mis").render_frame
     )(POSE, np.uint32(42), np.int32(0))
     pf = jax.jit(
-        pallas_kernel.make_render_frame(scene, mode="sorted",
+        pallas_kernel.make_render_frame(scene, interpret=True,
                                         transport="mis")
     )
     cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42), np.int32(0))
@@ -226,19 +226,18 @@ def test_pallas_schedulers_match_oracle_in_fog():
     cur_o, _vo, tot_o, rays_o = jax.jit(PathTracer(scene).render_frame)(
         POSE, np.uint32(42), np.int32(0)
     )
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(
-            POSE, np.uint32(42), np.int32(0)
-        )
-        err = f"mode={mode}"
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=2e-5, err_msg=err)
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(
+        POSE, np.uint32(42), np.int32(0)
+    )
+    err = "kernel"
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   atol=2e-5, err_msg=err)
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
 
 
 def test_fog_composes_with_material_extensions():
@@ -281,10 +280,10 @@ def test_unbiased_transport_sees_plane_light_through_fog():
 def test_henyey_greenstein_sampler_and_phase():
     import jax.numpy as jnp
 
-    from terminal_raytracer_tpu.ops import rng as prng
-    from terminal_raytracer_tpu.ops import sampling
-    from terminal_raytracer_tpu.ops import vecmath as vm
-    from terminal_raytracer_tpu.ops.vecmath import V3
+    from terminal_raytracer.ops import rng as prng
+    from terminal_raytracer.ops import sampling
+    from terminal_raytracer.ops import vecmath as vm
+    from terminal_raytracer.ops.vecmath import V3
 
     n = 8192
     state = prng.seed_pixel(jnp.arange(n, dtype=jnp.uint32), np.uint32(3),
@@ -339,7 +338,7 @@ def test_anisotropic_fog_pallas_matches_oracle():
     cur_o, _vo, tot_o, rays_o = jax.jit(PathTracer(scene).render_frame)(
         POSE, np.uint32(42), np.int32(0)
     )
-    pf = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted"))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
     cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42), np.int32(0))
     for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y), (cur_p.z, cur_o.z)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)

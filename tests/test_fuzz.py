@@ -1,6 +1,6 @@
 """Randomized-scene parity fuzz: seeded random geometry/materials, checked
 three ways — wavefront tracer vs the independent scalar reference tracer
-(same-seed sample means), jnp oracle vs the Pallas sorted pipeline, and
+(same-seed sample means), jnp oracle vs the GPU kernel, and
 NaN/finiteness. Catches interaction bugs hand-written scenes miss
 (overlapping primitives, lights inside geometry, mirror chains, grazing
 planes)."""
@@ -15,10 +15,10 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from scalar_ref import render_pixel  # noqa: E402
 
-from terminal_raytracer_tpu.models import Camera  # noqa: E402
-from terminal_raytracer_tpu.models.scene import scene_from_dict  # noqa: E402
-from terminal_raytracer_tpu.ops import pallas_kernel  # noqa: E402
-from terminal_raytracer_tpu.ops import tracer as tracer_mod  # noqa: E402
+from terminal_raytracer.models import Camera  # noqa: E402
+from terminal_raytracer.models.scene import scene_from_dict  # noqa: E402
+from terminal_raytracer.ops import pallas_kernel  # noqa: E402
+from terminal_raytracer.ops import tracer as tracer_mod  # noqa: E402
 
 POSE = Camera().pose()
 
@@ -139,15 +139,15 @@ def test_fuzz_pallas_matches_oracle(case):
     scene = random_scene(rng, spp=8)  # base 4 < spp: adaptive phase live
     of = jax.jit(tracer_mod.PathTracer(scene).render_frame)
     cur_o, _vo, tot_o, rays_o = of(POSE, np.uint32(42), np.int32(0))
-    pf = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted"))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
     cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42), np.int32(0))
     assert float(rays_p) == float(rays_o), f"case {case}"
     np.testing.assert_array_equal(
         np.asarray(tot_p), np.asarray(tot_o), f"case {case}"
     )
     # Decisions are exact (asserted above); radiance differs only by
-    # summation order between the in-kernel and sorted-stream extra-phase
-    # accumulation — fuzz scenes are brighter than the shipped ones, so a
+    # summation order between the kernel's regen accumulation and the
+    # oracle's lockstep accumulation — fuzz scenes are brighter than the shipped ones, so a
     # relative tolerance.
     np.testing.assert_allclose(
         np.asarray(cur_p.x), np.asarray(cur_o.x), rtol=2e-3, atol=2e-5,
@@ -171,7 +171,7 @@ def test_fuzz_extension_materials_pallas_matches_oracle(case):
     cur_o, _vo, tot_o, rays_o = of(POSE, np.uint32(42), np.int32(0))
     img_o = np.asarray(cur_o.x)
     assert np.isfinite(img_o).all(), f"case {case}: oracle non-finite"
-    pf = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted"))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
     cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42), np.int32(0))
     assert float(rays_p) == float(rays_o), f"case {case}"
     np.testing.assert_array_equal(

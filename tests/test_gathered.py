@@ -2,12 +2,9 @@
 against the brute sweeps, extension-channel winner fetches, occlusion,
 and full-pipeline oracle/Pallas agreement.
 
-The traversal ships OPT-IN (`--accel gathered`) with a measured
-refutation at stress scales (tools/perf_probe23.py + NOTES.md): the
-lane-axis gather costs ~30 vector ops per table row on v5e, so a
-gathered primitive test is ~25-50x a brute test — the brute sweep stays
-the auto policy. These tests keep the opt-in path correct, like the
-block-culled 'grid' mode before it (ops/accel.py precedent).
+The traversal ships OPT-IN (`--accel gathered`; its status is in the
+ops/gathered.py docstring) — the brute sweep stays the auto policy. These
+tests keep the opt-in path correct.
 """
 
 import dataclasses
@@ -17,12 +14,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.gen import icosphere_scene, stress_scene
-from terminal_raytracer_tpu.ops import gathered as gathered_mod
-from terminal_raytracer_tpu.ops import geometry as geom
-from terminal_raytracer_tpu.ops.vecmath import V3
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.gen import icosphere_scene, stress_scene
+from terminal_raytracer.ops import gathered as gathered_mod
+from terminal_raytracer.ops import geometry as geom
+from terminal_raytracer.ops.vecmath import V3
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 
@@ -149,15 +146,15 @@ def test_full_render_matches_array():
                                np.asarray(g.state.acc), atol=2e-4)
 
 
-@pytest.mark.parametrize("mode", ["lockstep", "regen", "sorted"])
-def test_pallas_matches_oracle(mode):
-    """All three schedulers drive the scratch-resident walk loop
-    (interpret mode) decision-exactly vs the oracle's vector-carry walk.
-    spp=16 (base 4 + adaptive extras) so the sorted pipeline's EXTRA
-    kernel also binds and consumes the gathered tables — the operand
-    plumbing the spp==base case leaves dead."""
-    from terminal_raytracer_tpu.ops import pallas_kernel as pk
-    from terminal_raytracer_tpu.ops import tracer as tracer_mod
+@pytest.mark.parametrize("block", [32, 64, 128])
+def test_pallas_matches_oracle(block):
+    """The kernel runs the walk loop on direct table loads (interpret
+    mode) decision-exactly vs the oracle's row-sweep fetches, at every
+    block size (the image is no multiple of any, so edge masks run).
+    spp=16 (base 4 + adaptive extras) so the extra phase consumes the
+    gathered tables too."""
+    from terminal_raytracer.ops import pallas_kernel as pk
+    from terminal_raytracer.ops import tracer as tracer_mod
 
     scene = dataclasses.replace(small_stress(48), samples_per_pixel=16)
     tr = tracer_mod.PathTracer(scene, accel="gathered")
@@ -165,7 +162,7 @@ def test_pallas_matches_oracle(mode):
                                                   np.int32(0))
     # Non-vacuous: some pixel drew adaptive extras beyond the base 4.
     assert float(np.asarray(tot_o).max()) > 4.0
-    rf = pk.make_render_frame(scene, mode=mode, accel="gathered",
+    rf = pk.make_render_frame(scene, block=block, accel="gathered",
                               interpret=True)
     cur, var, tot, rays, occ = rf(POSE, np.uint32(7), np.int32(0))
     assert float(rays) == float(np.asarray(rays_o).sum())
@@ -177,9 +174,9 @@ def test_pallas_matches_oracle(mode):
 def test_pallas_textured_gathered():
     """Image textures + gathered traversal in ONE kernel: the atlas
     operands and the gathered tables ride together (tex-then-gather
-    operand ordering), sorted scheduler, decision-exact vs the oracle."""
-    from terminal_raytracer_tpu.ops import pallas_kernel as pk
-    from terminal_raytracer_tpu.ops import tracer as tracer_mod
+    operand ordering), decision-exact vs the oracle."""
+    from terminal_raytracer.ops import pallas_kernel as pk
+    from terminal_raytracer.ops import tracer as tracer_mod
 
     scene = load_scene("textured").with_overrides(
         width=48, height=16, samples_per_pixel=4, max_depth=2)
@@ -187,8 +184,7 @@ def test_pallas_textured_gathered():
     tr = tracer_mod.PathTracer(scene, accel="gathered")
     cur_o, var_o, tot_o, rays_o = tr.render_frame(POSE, np.uint32(11),
                                                   np.int32(0))
-    rf = pk.make_render_frame(scene, mode="sorted", accel="gathered",
-                              interpret=True)
+    rf = pk.make_render_frame(scene, accel="gathered", interpret=True)
     cur, var, tot, rays, occ = rf(POSE, np.uint32(11), np.int32(0))
     assert float(rays) == float(np.asarray(rays_o).sum())
     np.testing.assert_array_equal(np.asarray(tot), np.asarray(tot_o))
@@ -221,7 +217,7 @@ def test_walk_trip_bound_is_safe():
 
 
 def test_dynamic_rejected():
-    from terminal_raytracer_tpu.ops import tracer as tracer_mod
+    from terminal_raytracer.ops import tracer as tracer_mod
 
     with pytest.raises(ValueError, match="gathered"):
         tracer_mod.PathTracer(small_stress(48), accel="gathered",

@@ -5,9 +5,9 @@ reference's root-selection and bound-strictness rules
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.ops import geometry as geom
-from terminal_raytracer_tpu.ops.vecmath import V3
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.ops import geometry as geom
+from terminal_raytracer.ops.vecmath import V3
 
 
 def _lane(x):

@@ -9,9 +9,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.runtime.offline import render_accumulated
-from terminal_raytracer_tpu.utils.imageio import read_ppm
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.runtime.offline import render_accumulated
+from terminal_raytracer.utils.imageio import read_ppm
 
 GOLDEN = Path(__file__).parent / "golden"
 

@@ -5,9 +5,9 @@ naive per-primitive loop, plus invariants on the shipped scenes."""
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import load_scene
-from terminal_raytracer_tpu.models.scene import scene_from_dict
-from terminal_raytracer_tpu.ops.grid import build_uniform_grid, primitive_aabbs
+from terminal_raytracer.models import load_scene
+from terminal_raytracer.models.scene import scene_from_dict
+from terminal_raytracer.ops.grid import build_uniform_grid, primitive_aabbs
 
 
 def _naive_grid_cells(scene, grid):

@@ -20,11 +20,11 @@ import pytest
 
 import jax
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.dynamic import pack_scene
-from terminal_raytracer_tpu.ops.tracer import PathTracer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.dynamic import pack_scene
+from terminal_raytracer.ops.tracer import PathTracer
 
 POSE = Camera().pose()
 
@@ -217,17 +217,16 @@ def test_pallas_schedulers_match_oracle():
     scene = _multi_scene(tri=True, light_sample="power", w=128, h=8)
     cur_o, _vo, tot_o, rays_o = jax.jit(PathTracer(scene).render_frame)(
         POSE, np.uint32(42), np.int32(0))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42), np.int32(0))
-        err = f"mode={mode}"
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=2e-5, err_msg=err)
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42), np.int32(0))
+    err = "kernel"
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   atol=2e-5, err_msg=err)
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
 
 
 def test_traversals_and_dynamic_agree():
@@ -276,7 +275,7 @@ def test_composes_with_fog_and_glass():
     scene = _multi_scene(light_sample="power", w=128, h=8, **cfg_extra)
     cur_o, _vo, tot_o, rays_o = jax.jit(PathTracer(scene).render_frame)(
         POSE, np.uint32(13), np.int32(0))
-    pf = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted"))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
     cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(13), np.int32(0))
     assert float(rays_p) == float(rays_o)
     np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o))

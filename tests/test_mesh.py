@@ -8,11 +8,11 @@ import jax
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import mesh as mesh_mod
-from terminal_raytracer_tpu.models import scene as scene_mod
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import PathTracer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import mesh as mesh_mod
+from terminal_raytracer.models import scene as scene_mod
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import PathTracer
 
 POSE = Camera().pose()
 
@@ -167,7 +167,7 @@ def _render(scene, accel):
 def test_mesh_baked_vs_array():
     """Mesh triangles through both traversals: identical control flow (ray
     counts, sample totals) and radiance to float rounding. Exact bitwise
-    equality holds on TPU and for straight-line sweeps; on CPU XLA a
+    equality holds for straight-line sweeps; on CPU XLA a
     fori_loop body can contract FMAs differently than unrolled code (<= 1
     ulp, ops/arrayscene._fori docstring), so radiance is pinned with a
     tight allclose here."""
@@ -184,12 +184,13 @@ def test_mesh_baked_vs_array():
 
 
 def test_mesh_pallas_matches_oracle():
-    """The sorted Pallas pipeline renders mesh triangles through the array
-    sweep (SMEM-ref fori reads) and agrees with the array oracle."""
+    """The GPU kernel renders mesh triangles through the array sweep
+    (input-ref fori reads) and agrees with the array oracle."""
     scene = load_scene("icosphere:1").with_overrides(
         width=128, height=16, samples_per_pixel=4, max_depth=2)
     co, _vo, to, ro = _render(scene, "array")
-    pf = jax.jit(pallas_kernel.make_render_frame(scene, accel="array"))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, accel="array",
+                                                 interpret=True))
     cp, _vp, tp, rp, _occ = jax.device_get(pf(POSE, np.uint32(5), np.int32(0)))
     assert float(rp) == float(ro)
     np.testing.assert_array_equal(np.asarray(tp), np.asarray(to))
@@ -201,8 +202,8 @@ def test_mesh_composes_with_animate():
     stream at runtime, the mesh folds back to baked constants. Frames must
     differ (geometry moves) and match the fully-dynamic render at equal
     values (the DynPrims folding contract, test_dynamic.py)."""
-    from terminal_raytracer_tpu.models.animate import ANIMATOR_KEYS, orbit
-    from terminal_raytracer_tpu.ops.dynamic import pack_scene
+    from terminal_raytracer.models.animate import ANIMATOR_KEYS, orbit
+    from terminal_raytracer.ops.dynamic import pack_scene
 
     scene = load_scene("mesh_demo").with_overrides(
         width=64, height=16, samples_per_pixel=2, max_depth=3)

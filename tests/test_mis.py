@@ -17,11 +17,11 @@ Invariants pinned here:
 import jax
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.scene import scene_from_dict
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import PathTracer
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.scene import scene_from_dict
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import PathTracer
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 
@@ -307,50 +307,48 @@ def test_mis_rough_metal_variance_reduction():
 
 
 def test_mis_rough_pallas_matches_oracle():
-    """The rough-metal mis path through all three Pallas schedulers —
+    """The rough-metal mis path through the GPU kernel —
     exact decisions, radiance to interpret-mode tolerance."""
     scene = _rough_floor_scene(0.5).with_overrides(
         width=64, height=8, samples_per_pixel=8, max_depth=3
     )
     of = jax.jit(PathTracer(scene, transport="mis").render_frame)
     cur_o, var_o, tot_o, rays_o = of(POSE, np.uint32(11), np.int32(0))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(
-            pallas_kernel.make_render_frame(scene, mode=mode, transport="mis")
+    pf = jax.jit(
+        pallas_kernel.make_render_frame(scene, interpret=True, transport="mis")
+    )
+    cur_p, var_p, tot_p, rays_p, _occ = pf(POSE, np.uint32(11), np.int32(0))
+    err = "kernel"
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), atol=2e-5, err_msg=err
         )
-        cur_p, var_p, tot_p, rays_p, _occ = pf(POSE, np.uint32(11), np.int32(0))
-        err = f"mode={mode}"
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), atol=2e-5, err_msg=err
-            )
-        np.testing.assert_array_equal(
-            np.asarray(tot_p), np.asarray(tot_o), err
-        )
-        assert float(rays_p) == float(rays_o), err
+    np.testing.assert_array_equal(
+        np.asarray(tot_p), np.asarray(tot_o), err
+    )
+    assert float(rays_p) == float(rays_o), err
 
 
 def test_mis_pallas_matches_oracle():
-    """All three Pallas schedulers reproduce the mis-mode oracle (interpret
+    """The GPU kernel reproduces the mis-mode oracle (interpret
     mode — same backend math, bit-equal decisions)."""
     scene = load_scene("Cornell_Box").with_overrides(
         width=140, height=10, samples_per_pixel=8, max_depth=3
     )
     of = jax.jit(PathTracer(scene, transport="mis").render_frame)
     cur_o, var_o, tot_o, rays_o = of(POSE, np.uint32(11), np.int32(0))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(
-            pallas_kernel.make_render_frame(scene, mode=mode, transport="mis")
+    pf = jax.jit(
+        pallas_kernel.make_render_frame(scene, interpret=True, transport="mis")
+    )
+    cur_p, var_p, tot_p, rays_p, _occ = pf(POSE, np.uint32(11), np.int32(0))
+    err = "kernel"
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), atol=2e-5, err_msg=err
         )
-        cur_p, var_p, tot_p, rays_p, _occ = pf(POSE, np.uint32(11), np.int32(0))
-        err = f"mode={mode}"
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), atol=2e-5, err_msg=err
-            )
-        np.testing.assert_array_equal(
-            np.asarray(tot_p), np.asarray(tot_o), err
-        )
-        assert float(rays_p) == float(rays_o), err
+    np.testing.assert_array_equal(
+        np.asarray(tot_p), np.asarray(tot_o), err
+    )
+    assert float(rays_p) == float(rays_o), err

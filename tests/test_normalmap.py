@@ -21,13 +21,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.ops import dynamic as dyn_mod
-from terminal_raytracer_tpu.ops import geometry as geom
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops import vecmath as vm
-from terminal_raytracer_tpu.ops.tracer import PathTracer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.ops import dynamic as dyn_mod
+from terminal_raytracer.ops import geometry as geom
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops import vecmath as vm
+from terminal_raytracer.ops.tracer import PathTracer
 
 POSE = Camera().pose()
 
@@ -230,20 +230,19 @@ def test_pallas_schedulers_match_oracle():
     scene = _nm_scene(width=128, height=8,
                       textures={"flat": copy.deepcopy(_TILT_U)})
     cur_o, _vo, tot_o, rays_o = _render(PathTracer(scene))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
-                                             np.int32(0))
-        err = f"mode={mode}"
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            diff = np.abs(np.asarray(a) - np.asarray(b))
-            outliers = int((diff > 2e-5).sum())
-            assert outliers <= diff.size // 100, (err, outliers)
-            assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
+                                         np.int32(0))
+    err = "kernel"
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        diff = np.abs(np.asarray(a) - np.asarray(b))
+        outliers = int((diff > 2e-5).sum())
+        assert outliers <= diff.size // 100, (err, outliers)
+        assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
 
 
 def test_composes_with_color_texture_and_bilinear():
@@ -266,7 +265,7 @@ def test_composes_with_color_texture_and_bilinear():
     assert (t.tex_prim_lo, t.tex_prim_hi) == (t.tex_rows, 2 * t.tex_rows)
     cur, _var, tot, rays = _render(t)
     assert np.isfinite(np.asarray(cur.x)).all() and float(rays) > 0
-    pf = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted"))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
     _cp, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42), np.int32(0))
     assert float(rays_p) == float(rays)
     np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot))

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
-from terminal_raytracer_tpu.runtime.offline import make_scan_renderer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.runtime import init_state, make_render_step
+from terminal_raytracer.runtime.offline import make_scan_renderer
 
 
 def test_scan_matches_python_loop():
@@ -18,7 +18,7 @@ def test_scan_matches_python_loop():
     seeds = np.array([11, 22, 33, 44, 55], np.uint32)
 
     render = make_scan_renderer(scene, n_frames=5, full_color=True, backend="jnp")
-    from terminal_raytracer_tpu.runtime.state import init_state as mk
+    from terminal_raytracer.runtime.state import init_state as mk
 
     state_s, rgb_s, _, rays_s = render(mk(scene), pose, jnp.asarray(seeds))
 
@@ -41,7 +41,7 @@ def test_chunked_headless_matches_per_frame():
     """Engine.run_headless with the chunked dispatch (k frames per compiled
     call) is bit-identical to per-frame driving on the same deterministic
     seed sequence — including a non-divisible n_frames (8+8+3)."""
-    from terminal_raytracer_tpu.runtime.engine import Engine
+    from terminal_raytracer.runtime.engine import Engine
 
     scene = load_scene("scene2").with_overrides(
         width=48, height=16, samples_per_pixel=4, max_depth=3
@@ -63,7 +63,7 @@ def test_chunked_headless_matches_per_frame():
 
 
 def test_render_accumulated_convenience():
-    from terminal_raytracer_tpu.runtime.offline import render_accumulated
+    from terminal_raytracer.runtime.offline import render_accumulated
 
     scene = load_scene("scene2").with_overrides(
         width=48, height=16, samples_per_pixel=4, max_depth=2
@@ -88,8 +88,8 @@ def test_orbit_scan_renderer():
     fori over accumulation frames, per-pose accumulation reset."""
     import numpy as np
 
-    from terminal_raytracer_tpu.models import Camera, load_scene
-    from terminal_raytracer_tpu.runtime.offline import (
+    from terminal_raytracer.models import Camera, load_scene
+    from terminal_raytracer.runtime.offline import (
         make_orbit_scan_renderer,
     )
 
@@ -121,10 +121,10 @@ def test_orbit_scan_renderer():
 
 
 def test_noise_scan_stops_and_caps():
-    """--until-noise composed with --scan (VERDICT r2 #8): a huge threshold
+    """--until-noise composed with --scan: a huge threshold
     stops after the first chunk; threshold 0 runs to the frame cap and is
     bit-identical to the plain scan on the same seeds."""
-    from terminal_raytracer_tpu.runtime.offline import (
+    from terminal_raytracer.runtime.offline import (
         make_noise_scan_renderer,
     )
 
@@ -162,7 +162,7 @@ def test_noise_scan_stops_and_caps():
 def test_noise_scan_chunk_clamps_to_divisor():
     """A chunk that doesn't divide the cap clamps down (8->...->1) so the
     cap stays exact."""
-    from terminal_raytracer_tpu.runtime.offline import (
+    from terminal_raytracer.runtime.offline import (
         make_noise_scan_renderer,
     )
 
@@ -183,7 +183,7 @@ def test_noise_scan_chunk_clamps_to_divisor():
 def test_chunked_headless_until_noise_stops():
     """Explicit chunk > 1 composes with until_noise: the convergence stop
     checks between chunks instead of being silently skipped."""
-    from terminal_raytracer_tpu.runtime.engine import Engine
+    from terminal_raytracer.runtime.engine import Engine
 
     scene = load_scene("scene2").with_overrides(
         width=48, height=16, samples_per_pixel=4, max_depth=2

@@ -6,7 +6,7 @@ Because the vectorized tracer gates every RNG state advance by the exact
 control-flow condition a scalar thread would evaluate (ops/rng.py), both
 implementations consume *identical* RNG chains — so same-seed renders agree
 to float rounding, not just in distribution. This is stronger than the
-BASELINE "parity modulo RNG" requirement.
+"parity modulo RNG" requirement (PARITY.md).
 """
 
 import jax
@@ -16,8 +16,8 @@ import pytest
 
 from scalar_ref import render_pixel
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.ops.tracer import PathTracer, cam_from_pose
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.ops.tracer import PathTracer, cam_from_pose
 
 CAM = cam_from_pose(Camera().pose())
 

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.ops.tracer import PathTracer, base_sample_count, cam_from_pose
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.ops.tracer import PathTracer, base_sample_count, cam_from_pose
+from terminal_raytracer.runtime import init_state, make_render_step
 
 
 def _tiny_scene(**kw):
@@ -80,7 +80,7 @@ def test_output_shapes_and_dtypes():
 
 def test_oracle_occupancy_measured():
     """The jnp oracle surfaces measured sweep-weighted occupancy (owed
-    sweeps over executed lane-iteration sweeps — the Pallas schedulers'
+    sweeps over executed lane-iteration sweeps — the GPU kernel's
     accounting). Exact pin: a depth-1 all-hit scene keeps every lane
     owing every sweep of its single iteration -> occupancy exactly 1.
     A deep multi-bounce scene must land strictly inside (0, 1)."""
@@ -181,8 +181,8 @@ def test_until_noise_convergence_stop():
     """--until-noise: headless rendering stops as soon as the accumulated
     noise estimate (mean sample variance / total samples) drops under the
     threshold, frame cap otherwise."""
-    from terminal_raytracer_tpu.models import load_scene
-    from terminal_raytracer_tpu.runtime.engine import Engine
+    from terminal_raytracer.models import load_scene
+    from terminal_raytracer.runtime.engine import Engine
 
     scene = load_scene("scene2").with_overrides(
         width=32, height=8, samples_per_pixel=4, max_depth=2
@@ -198,10 +198,10 @@ def test_until_noise_convergence_stop():
 def test_fuse_nee_bit_identical():
     """The fuse_nee probe path (deferred fused two-light shadow sweep,
     geometry.occluded2) renders BIT-identically to the shipped per-light
-    occluded() calls — oracle and the sorted Pallas scheduler alike (it
+    occluded() calls — oracle and the GPU kernel alike (it
     only reorders op scheduling, not values)."""
-    from terminal_raytracer_tpu.ops import pallas_kernel
-    from terminal_raytracer_tpu.ops import tracer as tracer_mod
+    from terminal_raytracer.ops import pallas_kernel
+    from terminal_raytracer.ops import tracer as tracer_mod
 
     scene = load_scene("Cornell_Box").with_overrides(
         width=64, height=32, samples_per_pixel=8, max_depth=6)
@@ -215,9 +215,9 @@ def test_fuse_nee_bit_identical():
 
     try:
         tracer_mod.FUSE_NEE = False
-        p0 = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted"))(*args)
+        p0 = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))(*args)
         tracer_mod.FUSE_NEE = True
-        p1 = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted"))(*args)
+        p1 = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))(*args)
     finally:
         tracer_mod.FUSE_NEE = False
     for x, y in zip(jax.tree_util.tree_leaves(p0), jax.tree_util.tree_leaves(p1)):

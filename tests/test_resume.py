@@ -10,9 +10,9 @@ shader.wgsl:612-620)."""
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import load_scene
-from terminal_raytracer_tpu.runtime.engine import Engine
-from terminal_raytracer_tpu.utils.statefile import load_state, save_state
+from terminal_raytracer.models import load_scene
+from terminal_raytracer.runtime.engine import Engine
+from terminal_raytracer.utils.statefile import load_state, save_state
 
 
 def tiny_scene():
@@ -82,11 +82,11 @@ def test_scan_resume_matches_split_render():
     then scan(frame0=2, n=1) with the same per-frame seeds."""
     import jax
 
-    from terminal_raytracer_tpu.runtime import init_state
-    from terminal_raytracer_tpu.runtime.offline import make_scan_renderer
+    from terminal_raytracer.runtime import init_state
+    from terminal_raytracer.runtime.offline import make_scan_renderer
 
     scene = tiny_scene()
-    from terminal_raytracer_tpu.models import Camera
+    from terminal_raytracer.models import Camera
 
     pose = Camera().pose()
     seeds = np.array([11, 22, 33], np.uint32)

@@ -4,7 +4,7 @@ shader.wgsl:104-115), statistical quality, and draw gating."""
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.ops import rng as prng
+from terminal_raytracer.ops import rng as prng
 
 from scalar_ref import Rng
 

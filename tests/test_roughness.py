@@ -21,15 +21,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.ops import dynamic as dyn_mod
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops import rng as prng
-from terminal_raytracer_tpu.ops import sampling
-from terminal_raytracer_tpu.ops import vecmath as vm
-from terminal_raytracer_tpu.ops.tracer import PathTracer
-from terminal_raytracer_tpu.ops.vecmath import V3
+from terminal_raytracer.models import Camera
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.ops import dynamic as dyn_mod
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops import rng as prng
+from terminal_raytracer.ops import sampling
+from terminal_raytracer.ops import vecmath as vm
+from terminal_raytracer.ops.tracer import PathTracer
+from terminal_raytracer.ops.vecmath import V3
 
 POSE = Camera().pose()
 
@@ -265,16 +265,15 @@ def test_pallas_schedulers_match_oracle_on_rough_glass_scene():
     scene = sm.scene_from_dict(cfg)
     assert scene.has_rough_metals and scene.has_dielectrics
     cur_o, _var_o, tot_o, rays_o = _render(PathTracer(scene))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _var_p, tot_p, rays_p, _occ = pf(
-            POSE, np.uint32(42), np.int32(0)
-        )
-        err = f"mode={mode}"
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=2e-5, err_msg=err)
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _var_p, tot_p, rays_p, _occ = pf(
+        POSE, np.uint32(42), np.int32(0)
+    )
+    err = "kernel"
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   atol=2e-5, err_msg=err)
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err

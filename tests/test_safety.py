@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 

@@ -4,10 +4,10 @@ checks per SURVEY.md §4.2)."""
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.ops import rng as prng
-from terminal_raytracer_tpu.ops import sampling
-from terminal_raytracer_tpu.ops import vecmath as vm
-from terminal_raytracer_tpu.ops.vecmath import V3
+from terminal_raytracer.ops import rng as prng
+from terminal_raytracer.ops import sampling
+from terminal_raytracer.ops import vecmath as vm
+from terminal_raytracer.ops.vecmath import V3
 
 
 def _states(n, seed=1):

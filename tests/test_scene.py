@@ -5,7 +5,7 @@ including optional `triangles` (lib.rs:62-63) and f64->f32 narrowing."""
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import scene as sm
+from terminal_raytracer.models import scene as sm
 
 
 def test_cornell_counts_and_values():
@@ -153,7 +153,7 @@ def test_scene_validation_rejects_nonsense():
 
 
 def test_load_scene_stress_spec():
-    from terminal_raytracer_tpu.models import load_scene
+    from terminal_raytracer.models import load_scene
 
     s = load_scene("stress:64")
     assert s.primitive_count == 65  # 64 spheres + floor plane

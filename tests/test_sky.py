@@ -17,11 +17,11 @@ import jax
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.ops import dynamic as dyn_mod
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops.tracer import PathTracer
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.ops import dynamic as dyn_mod
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops.tracer import PathTracer
 
 POSE = Camera().pose()
 
@@ -87,16 +87,15 @@ def test_loader_validation():
 
 
 def test_atlas_operand_gating():
-    # Sky-only scenes must still ride the atlas operand into the kernels;
+    # Sky-only scenes must still ride the atlas operand into the kernel;
     # plain scenes must not.
     t = PathTracer(_sky_scene())
     assert t.needs_atlas and not t.has_texture
-    assert len(pallas_kernel._tex_ops(t)) == 1
-    assert len(pallas_kernel._tex_specs(t, 2, {})) == 1
+    assert len(pallas_kernel._table_ops(t)) == 1
     plain = PathTracer(load_scene("Cornell_Box").with_overrides(
         width=32, height=8, samples_per_pixel=1, max_depth=2))
     assert not plain.needs_atlas
-    assert pallas_kernel._tex_ops(plain) == ()
+    assert pallas_kernel._table_ops(plain) == ()
 
 
 # ---------------------------------------------------------------------------
@@ -207,20 +206,19 @@ def test_recolor_sweep_excludes_sky_only_rows():
 def test_pallas_schedulers_match_oracle():
     scene = _mixed_scene()
     cur_o, _vo, tot_o, rays_o = _render(PathTracer(scene))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
-                                             np.int32(0))
-        err = f"mode={mode}"
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            diff = np.abs(np.asarray(a) - np.asarray(b))
-            outliers = int((diff > 2e-5).sum())
-            assert outliers <= diff.size // 100, (err, outliers)
-            assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
+                                         np.int32(0))
+    err = "kernel"
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        diff = np.abs(np.asarray(a) - np.asarray(b))
+        outliers = int((diff > 2e-5).sum())
+        assert outliers <= diff.size // 100, (err, outliers)
+        assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
 
 
 def test_traversals_and_dynamic_agree():

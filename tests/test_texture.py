@@ -2,8 +2,8 @@
 
 `texture` + `texture_scale` sample a per-scene texel atlas at hits
 (ops/tracer.py _texture_recolor): spherical mapping on spheres, dominant-
-axis planar on planes/triangles, texels fetched with the Mosaic-native
-lane gather (tracer.gather_texels, tools/perf_probe21b.py). Same contract
+axis planar on planes/triangles, texels fetched per lane
+(tracer.gather_texels). Same contract
 as the other extension channels (test_checker / test_dielectric):
 statically gated — scenes without textures compile to the exact
 pre-extension program — and agreeing across every traversal and scheduler.
@@ -18,13 +18,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models import scene as sm
-from terminal_raytracer_tpu.models import texture as tx
-from terminal_raytracer_tpu.ops import dynamic as dyn_mod
-from terminal_raytracer_tpu.ops import pallas_kernel
-from terminal_raytracer_tpu.ops import sampling
-from terminal_raytracer_tpu.ops.tracer import PathTracer, gather_texels
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models import scene as sm
+from terminal_raytracer.models import texture as tx
+from terminal_raytracer.ops import dynamic as dyn_mod
+from terminal_raytracer.ops import pallas_kernel
+from terminal_raytracer.ops import sampling
+from terminal_raytracer.ops.tracer import PathTracer, gather_texels
 
 POSE = Camera().pose()
 
@@ -131,7 +131,7 @@ def test_loader_validation():
 
 
 def test_atlas_packing_and_ppm_roundtrip(tmp_path):
-    from terminal_raytracer_tpu.utils import imageio
+    from terminal_raytracer.utils import imageio
 
     # PPM file -> Texture equals the same pixels inline.
     img = np.arange(16 * 16 * 3, dtype=np.uint32).reshape(16, 16, 3) % 256
@@ -246,27 +246,26 @@ def test_pallas_schedulers_match_oracle_on_textured_scene():
     # back into control flow.
     scene = _textured_scene()
     cur_o, _vo, tot_o, rays_o = _render(PathTracer(scene))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
-                                             np.int32(0))
-        err = f"mode={mode}"
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            diff = np.abs(np.asarray(a) - np.asarray(b))
-            outliers = int((diff > 2e-5).sum())
-            assert outliers <= diff.size // 100, (err, outliers)
-            assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
+                                         np.int32(0))
+    err = "kernel"
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        diff = np.abs(np.asarray(a) - np.asarray(b))
+        outliers = int((diff > 2e-5).sum())
+        assert outliers <= diff.size // 100, (err, outliers)
+        assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
 
 
 def test_dynamic_pallas_and_animator_folding():
-    # The sorted pipeline under dynamic values with the texel atlas
+    # The GPU kernel under dynamic values with the texel atlas
     # operand, and animator-key folding composed with the texture channels
     # (orbit animates geometry; txi/txs fold back to constants).
-    from terminal_raytracer_tpu.models.animate import ANIMATOR_KEYS, orbit
+    from terminal_raytracer.models.animate import ANIMATOR_KEYS, orbit
 
     # Textured sphere OFF the scene's centroid axis, so the orbit
     # animation actually displaces it.
@@ -277,7 +276,7 @@ def test_dynamic_pallas_and_animator_folding():
          "emission": [0, 0, 0], "reflectivity": 0.0, "texture": "quad"},
     ])
     cur_o, _vo, tot_o, rays_o = _render(PathTracer(scene), seed=9)
-    pf = jax.jit(pallas_kernel.make_render_frame(scene, mode="sorted",
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True,
                                                  dynamic=True))
     a0 = dyn_mod.pack_scene(scene)
     cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(9), np.int32(0),
@@ -307,13 +306,12 @@ def test_packaged_textured_scene():
 
 def test_untextured_scene_pays_nothing():
     # The static gate: an untextured tracer has no atlas machinery at all
-    # (no operand, no gather — the kernels' in_specs stay unchanged).
+    # (no operand, no gather — the kernel's inputs stay unchanged).
     scene = load_scene("Cornell_Box").with_overrides(
         width=32, height=8, samples_per_pixel=1, max_depth=2)
     tracer = PathTracer(scene)
     assert not tracer.has_texture
-    assert pallas_kernel._tex_ops(tracer) == ()
-    assert pallas_kernel._tex_specs(tracer, 2, {}) == []
+    assert pallas_kernel._table_ops(tracer) == ()
 
 
 # ---------------------------------------------------------------------------
@@ -392,20 +390,19 @@ def test_bilinear_smooths_texel_edges():
 def test_bilinear_pallas_schedulers_match_oracle():
     scene = _textured_scene(texture_filter="bilinear")
     cur_o, _vo, tot_o, rays_o = _render(PathTracer(scene))
-    for mode in ("lockstep", "regen", "sorted"):
-        pf = jax.jit(pallas_kernel.make_render_frame(scene, mode=mode))
-        cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
-                                             np.int32(0))
-        err = f"mode={mode}"
-        np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
-                                      err)
-        assert float(rays_p) == float(rays_o), err
-        for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
-                     (cur_p.z, cur_o.z)):
-            diff = np.abs(np.asarray(a) - np.asarray(b))
-            outliers = int((diff > 2e-5).sum())
-            assert outliers <= diff.size // 100, (err, outliers)
-            assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
+    pf = jax.jit(pallas_kernel.make_render_frame(scene, interpret=True))
+    cur_p, _vp, tot_p, rays_p, _occ = pf(POSE, np.uint32(42),
+                                         np.int32(0))
+    err = "kernel"
+    np.testing.assert_array_equal(np.asarray(tot_p), np.asarray(tot_o),
+                                  err)
+    assert float(rays_p) == float(rays_o), err
+    for a, b in ((cur_p.x, cur_o.x), (cur_p.y, cur_o.y),
+                 (cur_p.z, cur_o.z)):
+        diff = np.abs(np.asarray(a) - np.asarray(b))
+        outliers = int((diff > 2e-5).sum())
+        assert outliers <= diff.size // 100, (err, outliers)
+        assert np.median(diff) < 2e-6, (err, float(np.median(diff)))
 
 
 def test_bilinear_sky():
@@ -430,7 +427,7 @@ def test_bilinear_sky():
 
 
 def test_read_png_roundtrip_and_filters(tmp_path):
-    from terminal_raytracer_tpu.utils import imageio
+    from terminal_raytracer.utils import imageio
 
     rng = np.random.default_rng(11)
     img = rng.integers(0, 256, size=(24, 17, 3)).astype(np.uint8)
@@ -457,7 +454,7 @@ def test_read_png_roundtrip_and_filters(tmp_path):
 
 
 def test_read_png_rejects_unsupported(tmp_path):
-    from terminal_raytracer_tpu.utils import imageio
+    from terminal_raytracer.utils import imageio
 
     (tmp_path / "x.png").write_bytes(b"not a png")
     with pytest.raises(ValueError, match="not a PNG"):
@@ -470,7 +467,7 @@ def test_read_png_rejects_unsupported(tmp_path):
 
 
 def test_png_texture_in_scene(tmp_path):
-    from terminal_raytracer_tpu.utils import imageio
+    from terminal_raytracer.utils import imageio
 
     img = np.zeros((16, 16, 3), np.uint8)
     img[:8] = (255, 0, 0)

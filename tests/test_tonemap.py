@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from terminal_raytracer_tpu.ops import tonemap as tm
-from terminal_raytracer_tpu.ops.vecmath import V3
+from terminal_raytracer.ops import tonemap as tm
+from terminal_raytracer.ops.vecmath import V3
 
 
 def _img(vals):
@@ -130,8 +130,8 @@ def test_step_display_flags():
     bit-identical to a step built with no display args at all."""
     import jax
 
-    from terminal_raytracer_tpu.models import Camera, load_scene
-    from terminal_raytracer_tpu.runtime import init_state, make_render_step
+    from terminal_raytracer.models import Camera, load_scene
+    from terminal_raytracer.runtime import init_state, make_render_step
 
     scene = load_scene("Cornell_Box").with_overrides(
         width=64, height=32, samples_per_pixel=2, max_depth=3)
@@ -158,7 +158,7 @@ def test_cli_tonemap_flags():
     """--tonemap validation errors early; a good spec renders headless."""
     import pytest
 
-    from terminal_raytracer_tpu import cli
+    from terminal_raytracer import cli
 
     with pytest.raises(SystemExit):
         cli.main(["--scene", "Cornell_Box", "--tonemap", "bogus"])

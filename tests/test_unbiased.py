@@ -5,9 +5,9 @@ post-mirror hits only."""
 import jax
 import numpy as np
 
-from terminal_raytracer_tpu.models import Camera, load_scene
-from terminal_raytracer_tpu.models.scene import scene_from_dict
-from terminal_raytracer_tpu.runtime import init_state, make_render_step
+from terminal_raytracer.models import Camera, load_scene
+from terminal_raytracer.models.scene import scene_from_dict
+from terminal_raytracer.runtime import init_state, make_render_step
 
 POSE = Camera().pose()
 

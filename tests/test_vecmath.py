@@ -2,8 +2,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from terminal_raytracer_tpu.ops import vecmath as vm
-from terminal_raytracer_tpu.ops.vecmath import V3
+from terminal_raytracer.ops import vecmath as vm
+from terminal_raytracer.ops.vecmath import V3
 
 
 def _rand_v3(shape=(4, 5), seed=0):
