@@ -9,7 +9,7 @@ Runs the main path the way users run it and checks what comes out:
    north-star settings (16 spp, depth 32), `stress:1024` (array-resident
    traversal), `--animate orbit` and a 100-frame `--scan` -- each with
    backend auto (the megakernel) and backend jnp at the same seeds; the
-   two images must agree (IMAGE_TOL), and bench.py times each cell;
+   two images must agree (IMAGE_LIMITS), and bench.py times each cell;
 3. the interactive viewer through a pty: a few frames, one WASD key
    (accumulation resets), ESC, exit 0;
 4. agreement on the card (runtime/compare.py tolerances): `bench.py
@@ -45,10 +45,20 @@ ENV = dict(os.environ, PYTHONPATH=os.pathsep.join(
     p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
 
 # Kernel and jnp images of one render, same seeds: decisions flip only on
-# isolated pixels (runtime/compare.py), so at most 1% of pixels may differ
-# by more than 2 levels of 255 in any channel, and the image means by at
-# most 0.5 levels.
-IMAGE_TOL = dict(share=0.01, levels=2, mean_levels=0.5)
+# isolated pixels (runtime/compare.py). A pixel is "off" when a channel
+# differs by more than IMAGE_TOL["levels"] of 255.
+IMAGE_TOL = dict(levels=2)
+# Per cell: (share of pixels off, image-mean difference in levels). Each
+# limit is about 10x the cell's reading on an H100 (PERF.md), never above
+# 1% of pixels. A lost 128-pixel kernel block breaks the share limit of
+# cornell_shipped and the mean limit of every other cell.
+IMAGE_LIMITS = {
+    "cornell_shipped": (1e-4, 0.01),  # read 0 px off, mean diff < 0.001
+    "north_star": (9e-3, 0.05),  # read 9.0e-4, 0.004
+    "stress1024": (1e-2, 0.05),  # read 2.9e-3, 0.004
+    "animate_orbit": (6e-4, 0.03),  # read 6.25e-5, 0.002
+    "scan100": (1e-2, 0.02),  # read 2.28e-3, 0.001
+}
 
 # Headless cells: (name, CLI arguments, bench.py config or None).
 CELLS = [
@@ -134,12 +144,14 @@ def compare_images(name: str, kernel_path: str, jnp_path: str) -> None:
     off = np.max(np.abs(a - b), axis=-1) > IMAGE_TOL["levels"]
     share = float(np.mean(off))
     dmean = abs(float(a.mean()) - float(b.mean()))
-    print(f"[{name}] kernel vs jnp image: {share:.2e} of px off by "
-          f"> {IMAGE_TOL['levels']} levels, mean {a.mean():.3f} vs "
-          f"{b.mean():.3f}", flush=True)
+    max_share, max_dmean = IMAGE_LIMITS[name]
+    print(f"[{name}] kernel vs jnp image: {share:.3e} of px off by "
+          f"> {IMAGE_TOL['levels']} levels (limit {max_share:g}), mean "
+          f"{a.mean():.4f} vs {b.mean():.4f}, diff {dmean:.4f} (limit "
+          f"{max_dmean:g})", flush=True)
     if a.max() == 0:
         fail(f"{name}: black image")
-    if share > IMAGE_TOL["share"] or dmean > IMAGE_TOL["mean_levels"]:
+    if share > max_share or dmean > max_dmean:
         fail(f"{name}: kernel and jnp images disagree")
 
 
@@ -249,10 +261,11 @@ def agreement() -> None:
     print(f"[check] {json.loads(r.stdout.strip().splitlines()[-1])['check']}",
           flush=True)
     r = run("gpu-tests", [sys.executable, "-m", "pytest", "tests/", "-m",
-                          "gpu", "-q", "-p", "no:cacheprovider",
+                          "gpu", "-q", "-s", "-p", "no:cacheprovider",
                           "--durations=5"], timeout=900)
-    for line in r.stdout.strip().splitlines()[-9:]:
-        print(f"[gpu-tests] {line}", flush=True)
+    for line in r.stdout.strip().splitlines():
+        if "budgets differ" in line or "passed" in line:
+            print(f"[gpu-tests] {line}", flush=True)
 
 
 def blitter() -> None:
@@ -281,38 +294,32 @@ def four_cards() -> dict:
     pose = Camera().pose()
 
     def frames(step, state, n=4):
-        t0 = time.perf_counter()
         for f in range(n):
             out = step(state, pose, np.uint32(11 + f), np.int32(f))
             state = out.state
-        jax.block_until_ready(out)
-        return out, (time.perf_counter() - t0) / n
+        return jax.block_until_ready(out)
 
+    # Correctness only: bench.py --shard times these meshes.
     runs = {}
     with jax.default_device(devs[0]):
         for denoise in (0.0, 1.0):
             step = make_render_step(scene, denoise=denoise)
-            frames(step, init_state(scene), 1)  # compile
             runs[("single", denoise)] = frames(step, init_state(scene))
     for spec, n_px, n_sp in (("px:4", 4, 1), ("px:2,sp:2", 2, 2)):
         for denoise in ((0.0, 1.0) if n_sp == 1 else (0.0,)):
             step, mk = make_sharded_render_step(
                 scene, make_mesh(n_px, n_sp), denoise=denoise)
-            frames(step, mk(), 1)
-            out, dt = frames(step, mk())
+            out = frames(step, mk())
             shards = {s.device for s in out.state.acc.addressable_shards}
             if len(shards) != n_px * n_sp:
                 fail(f"{spec}: state lives on {len(shards)} devices")
-            runs[(spec, denoise)] = (out, dt)
+            runs[(spec, denoise)] = out
             print(f"[four-cards] {spec} denoise={denoise} "
-                  f"backend={step.backend}: {dt * 1e3:.3f} ms/frame on "
-                  f"{len(shards)} devices", flush=True)
+                  f"backend={step.backend}: state on {len(shards)} devices",
+                  flush=True)
     for denoise in (0.0, 1.0):
-        print(f"[four-cards] single denoise={denoise}: "
-              f"{runs[('single', denoise)][1] * 1e3:.3f} ms/frame",
-              flush=True)
-        ref, _ = runs[("single", denoise)]
-        px, _ = runs[("px:4", denoise)]
+        ref = runs[("single", denoise)]
+        px = runs[("px:4", denoise)]
         if float(px.rays) != float(ref.rays):
             fail(f"px:4 rays {float(px.rays)} != single {float(ref.rays)}")
         diff = np.abs(np.asarray(px.rgb, np.int32)
@@ -321,8 +328,8 @@ def four_cards() -> dict:
               f"max rgb diff {int(diff.max())}", flush=True)
         if diff.max() > IMAGE_TOL["levels"]:
             fail("px:4 image differs from the single-card image")
-    ref, _ = runs[("single", 0.0)]
-    sp, _ = runs[("px:2,sp:2", 0.0)]
+    ref = runs[("single", 0.0)]
+    sp = runs[("px:2,sp:2", 0.0)]
     m_ref = float(np.mean(np.asarray(ref.state.acc)))
     m_sp = float(np.mean(np.asarray(sp.state.acc)))
     rel = abs(m_sp - m_ref) / m_ref

@@ -181,7 +181,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(parallel/mesh.py): N = N-way pixel-row data "
                         "parallelism, or px:N / sp:N / px:N,sp:M to also "
                         "split samples with reference-exact adaptive "
-                        "statistics")
+                        "statistics; correct, but currently slower than "
+                        "one card (PERF.md)")
     return p
 
 

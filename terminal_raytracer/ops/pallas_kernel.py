@@ -42,7 +42,8 @@ from ..models import scene as scene_mod
 from . import tracer as tracer_mod
 from .vecmath import V3
 
-# Lanes per program: one lane per thread, 4 warps. Sweep: bench.py --block.
+# Lanes per program: one lane per thread, 4 warps. On an H100 at north-star
+# settings 64 and 128 lanes tie and 256 is slower (PERF.md).
 BLOCK = 128
 
 

@@ -9,9 +9,10 @@ Two orthogonal parallel axes. The cards of one host are joined all to all,
 so the mesh follows the algorithm alone:
 
 * ``px`` — pixel-row data parallelism. The image (and all frame state) is
-  sharded along H. Embarrassingly parallel: zero collectives until the host
-  gathers the final uint8 frame. Each shard runs the single-card renderer
-  (the megakernel or the XLA oracle) on its own row block.
+  sharded along H. Embarrassingly parallel: the only collectives are the
+  scalar psums of the frame's ray count and occupancy denominator. Each
+  shard runs the single-card renderer (the megakernel or the XLA oracle)
+  on its own row block.
 
 * ``sp`` — sample parallelism, with *reference-exact* adaptive-sampling
   statistics. The global base budget max(4, spp/4) (shader.wgsl:513) is

@@ -1,26 +1,3 @@
-"""terminal_raytracer_tpu — a TPU-native (JAX/XLA/Pallas) terminal path tracer.
-
-A brand-new framework with the capabilities of the Rust+wgpu reference
-(Gooey321/Terminal-Raytracer): physically-based path tracing of spheres /
-infinite planes / triangles with diffuse+mirror materials, next-event
-estimation, cosine-weighted hemisphere sampling, Russian-roulette
-termination, per-pixel adaptive sampling, and temporal accumulation —
-rendered straight into the terminal as ASCII glyphs or 24-bit truecolor
-block cells, with interactive WASD/arrow camera controls.
-
-Layer map (mirrors SURVEY.md §1 "TPU-native layer mapping"):
-
-  models/    scene JSON schema -> SoA arrays + static primitive tuples; fly camera
-  ops/       the compute path: SoA vec3 math, PCG RNG, intersections, sampling,
-             the wavefront path-trace core (pure jax.numpy oracle) and the
-             Pallas TPU megakernel; on-device tonemap
-  parallel/  jax.sharding Mesh / shard_map multi-chip scale-out
-  runtime/   jit-stable render step + frame state, terminal frontend,
-             native ANSI blitter bindings, phase timers
-  utils/     image/state IO
-
-Everything on the hot path is either XLA-compiled jax.numpy, a Pallas TPU
-kernel, or C++ (the terminal ANSI encoder).
-"""
-
-__version__ = "0.1.0"
+"""The former name of the `terminal_raytracer` package, kept so that
+`python -m` under this name still starts the CLI. Code imports
+`terminal_raytracer`."""

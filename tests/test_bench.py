@@ -72,3 +72,16 @@ def test_dynamic_configs_use_animatable_scenes(bench):
         )
         arrays = orbit(pack_scene(scene), 3)
         assert arrays, name
+
+
+def test_busy_ns_is_the_union_of_intervals(bench):
+    """The trace reduction's busy time: overlaps count once, gaps not."""
+    assert bench.busy_ns([]) == 0
+    assert bench.busy_ns([(0, 10), (5, 10), (30, 5), (31, 1)]) == 20
+    assert bench.busy_ns([(30, 5), (0, 40)]) == 40
+
+
+def test_shard_takes_only_per_frame_static_configs(bench):
+    for name in ("demo", "scan100", "dynamic"):
+        with pytest.raises(SystemExit, match="per-frame static"):
+            bench.run_bench(name, "jnp", 1, 1, False, shard="px:2")
